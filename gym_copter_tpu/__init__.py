@@ -1,10 +1,10 @@
-"""gym_copter_tpu — a TPU-native multicopter environment engine.
+"""gym_copter_tpu — a batched multicopter environment engine in JAX.
 
 A from-scratch JAX/XLA reimplementation of the capability surface of
 simondlevy/gym-copter (Bouabdallah-2004 quadrotor dynamics; Lander/Hover
 1D/2D/3D tasks; PID heuristics; rendering; vision/DVS sensors), redesigned
-for batched, sharded execution on TPU: thousands of environments step in
-lockstep inside one jitted `lax.scan`, with reward shaping, termination, and
+for batched, sharded execution: thousands of environments step in lockstep
+inside one jitted `lax.scan`, with reward shaping, termination, and
 auto-reset folded into the branchless step.
 
 Quick start:

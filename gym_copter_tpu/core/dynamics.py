@@ -1,18 +1,17 @@
-"""TPU-native Bouabdallah-2004 quad-X rigid-body dynamics.
+"""Batched Bouabdallah-2004 quad-X rigid-body dynamics.
 
 Pure-functional, branchless reimplementation of the reference dynamics
 (gym_copter/dynamics/__init__.py:114-197).  Where the reference mutates a
 single 12-float numpy state behind three data-dependent `if` branches and an
 early `return`, this step is one straight-line XLA program over masked
-`jnp.where` updates, so thousands of vehicles integrate in lockstep on the
-VPU under `jit`.
+`jnp.where` updates, so thousands of vehicles integrate in lockstep under
+`jit`.
 
 Layout convention: the state `x` has shape (12,) for a single vehicle or
 (12, B) for a batch ("struct of arrays") — every per-component operation is
-then an elementwise op over the batch lane dimension, which maps directly
-onto the TPU's (8, 128) vector registers with no padding waste and no
-gathers.  All functions below are polymorphic over these two layouts; masks
-of shape () or (B,) broadcast correctly against (12, B).
+then an elementwise op over a contiguous batch row, with no gathers.  All
+functions below are polymorphic over these two layouts; masks of shape ()
+or (B,) broadcast correctly against (12, B).
 
 Semantics preserved exactly (see SURVEY.md §2.4 "parity traps"):
   * forward-Euler integration, one step per call (reference :187);

@@ -1,4 +1,4 @@
-"""Frozen parameter pytrees for the TPU-native copter engine.
+"""Frozen parameter pytrees for the batched copter engine.
 
 The reference passes vehicle constants as a plain dict
 (gym_copter/dynamics/vehicles/dji_phantom.py:9-26) and task settings as

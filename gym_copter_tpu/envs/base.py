@@ -10,8 +10,9 @@ in the hot loop.
 
 Layout: "struct of arrays" — the 12-state is (12, B), actions are (A, B),
 observations are (obs_dim, B) ("features-first").  Every per-env quantity is
-a (B,) lane vector, the natural TPU-VPU layout; a features-first MLP policy
-can matmul W @ obs directly on the MXU with B on the lane dimension.
+a contiguous (B,) vector, so elementwise physics reads and writes whole rows,
+and a features-first MLP policy computes W @ obs with B as the wide
+dimension.
 
 Determinism: each environment's randomness is derived as
 `fold_in(fold_in(base_key, global_env_id), episode_index)`, so trajectories
@@ -327,7 +328,9 @@ def _raw_step(state: EnvState, action, params: EnvParams, spec: TaskSpec):
         motors = action                     # takeoff.py:67 raw pass-through
     spinning = (~landed) & (jnp.sum(motors, axis=0) > 0)
     mix = jnp.asarray(spec.mix_matrix, x_dtype)
-    motors4 = mix @ motors  # (4, B)
+    # HIGHEST: an f32 dot on the GPU may otherwise run in TF32
+    motors4 = jnp.matmul(mix, motors,
+                         precision=jax.lax.Precision.HIGHEST)  # (4, B)
     if spec.action_mode == 'demand3':
         # the MIXED motor values are clipped to [0,1] (simple_lander3d.py:99)
         motors4 = jnp.clip(motors4, 0.0, 1.0)
@@ -409,7 +412,7 @@ def step(
     spec: TaskSpec,
 ) -> Tuple[EnvState, TimeStep]:
     """Environment step with folded-in auto-reset: finished slots are
-    replaced in place by freshly reset episodes (the TPU-native analogue of
+    replaced in place by freshly reset episodes (the batched analogue of
     the reference's per-episode `Dynamics()` allocation, task.py:161)."""
     new_state, obs, reward, done, spinning = _raw_step(state, action, params, spec)
 

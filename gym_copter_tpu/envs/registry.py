@@ -2,7 +2,7 @@
 
 The reference exposes envs through the Gymnasium registry
 (gym_copter/__init__.py:9-13, `gym.make('gym_copter:Lander-v0')`); the
-TPU-native equivalent is a factory returning a `CopterEnv`: a thin,
+batched equivalent here is a factory returning a `CopterEnv`: a thin,
 immutable handle bundling (jitted reset, jitted auto-resetting step, scan
 rollout) for N lockstep environments on the current device.  For the
 single-env drop-in Gymnasium API, see gym_copter_tpu.compat.gym_adapter.
@@ -112,33 +112,24 @@ class CopterEnv:
 
     def fused_rollout(self, state: EnvState, action, num_steps: int,
                       seed: int = 0):
-        """Run `num_steps` auto-resetting steps with a constant action as
-        ONE Pallas kernel launch (ops/pallas_rollout.py) — the
-        speed-of-light path (~20x the scan rollout on a v5e chip).  Falls
-        back to the XLA scan — with a logged warning, since that path is
-        ~20x slower — when the batch is not a multiple of 128 lanes (every
-        task kind is in the fused family).  Returns (EnvState, totals) with
-        totals = {'reward_sum': (B,), 'episodes': (B,), 'path':
-        'fused'|'scan'} so callers can assert which path executed."""
+        """Run `num_steps` auto-resetting steps with a constant action.  On
+        the GPU this is ONE Pallas kernel launch (ops/pallas_rollout.py);
+        elsewhere, and for task kinds outside the kernel's family, it is the
+        XLA scan.  Returns (EnvState, totals) with totals = {'reward_sum':
+        (B,), 'episodes': (B,), 'path': 'fused'|'scan'} so callers can
+        assert which path executed."""
         from gym_copter_tpu.ops import pallas_rollout as pr
 
-        if (pr.supports(self.params, self.spec)
-                and self.num_envs % pr.LANES == 0):
+        path = rollout_path(jax.default_backend(), self.params, self.spec)
+        if path == 'fused':
             state, totals = pr.fused_rollout(state, action, num_steps,
                                              self.params, self.spec,
                                              seed=seed, env_ids=self.env_ids)
-            totals['path'] = 'fused'
-            return state, totals
-        import logging
-        logging.getLogger(__name__).warning(
-            'fused_rollout: task %s with batch %d fell back to the XLA scan '
-            'path (~20x slower); use a batch that is a multiple of %d to '
-            'engage the fused kernel', self.spec.name, self.num_envs,
-            pr.LANES)
-        state, totals = pr.scan_rollout(state, action, self.base_key,
-                                        self.env_ids, num_steps,
-                                        self.params, self.spec)
-        totals['path'] = 'scan'
+        else:
+            state, totals = pr.scan_rollout(state, action, self.base_key,
+                                            self.env_ids, num_steps,
+                                            self.params, self.spec)
+        totals['path'] = path
         return state, totals
 
     def run_episode(self, state: EnvState, actions):
@@ -159,6 +150,17 @@ class CopterEnv:
             self._rollout_cache['episode'] = jax.jit(run)
         return self._rollout_cache['episode'](state, actions, self.base_key,
                                               self.env_ids)
+
+
+def rollout_path(platform: str, params: EnvParams, spec: TaskSpec) -> str:
+    """Which implementation `CopterEnv.fused_rollout` runs on `platform`:
+    the compiled kernel ('fused') on the GPU for task kinds in its family,
+    the XLA scan ('scan') everywhere else."""
+    from gym_copter_tpu.ops import pallas_rollout as pr
+
+    if platform == 'gpu' and pr.supports(params, spec):
+        return 'fused'
+    return 'scan'
 
 
 def make(name: str, num_envs: int = 1, params: Optional[EnvParams] = None,

@@ -1,6 +1,6 @@
 """Batched adaptive disturbance-rejection control (PES-style learning).
 
-TPU-native counterpart of the reference's Nengo adaptive hover experiment
+Batched counterpart of the reference's Nengo adaptive hover experiment
 (attic/nengo/adaptive.py:49-122 + copter.py:16-57): a PD altitude
 controller augmented by an online-learned adaptive term that cancels
 unmodeled steady-state effort (gravity offset + an injected wind force).
@@ -10,7 +10,7 @@ with the PES rule (dw = lr * error * activities) at 1 kHz host stepping.
 Here the same learning rule runs as dense batched linear regression on RBF
 features inside one `lax.scan`: B independent plants — each with its OWN
 wind force and its OWN adapting weight vector — step in lockstep on the
-TPU, so a whole disturbance sweep costs one compiled rollout.
+device, so a whole disturbance sweep costs one compiled rollout.
 
 Same signal wiring as the reference:
   * u_pd   = k_p * (target - z) + k_d * (0 - dz)      (adaptive.py:72-78)

@@ -1,9 +1,9 @@
-"""TPU-native HyperNEAT: CPPN-generated substrate networks.
+"""Batched HyperNEAT: CPPN-generated substrate networks.
 
 The reference's NEAT configs are ES-HyperNEAT (attic/neat/config/lander2d
 `[Substrate]`/`[ES]` sections): an evolved CPPN is queried over pairs of
 substrate coordinates to produce the controller's connection weights.
-This module is the TPU-first re-design of that *indirect encoding*
+This module is the batched re-design of that *indirect encoding*
 capability (VERDICT r4 missing #2), complementing the direct-encoding GA
 in `learn/neuroevolution.py`:
 
@@ -11,10 +11,9 @@ in `learn/neuroevolution.py`:
   connection's endpoint coordinates (x1, y1, x2, y2) to its weight.
   Querying it for every connection of every genome is one population-
   stacked einsum over a precomputed (n_queries, 4) coordinate table —
-  exactly the shape of work the MXU wants, and the reason HyperNEAT is
-  *more* TPU-friendly than direct encoding: the phenotype is generated,
-  not stored, so the genome is tiny and decode cost is O(pop x queries)
-  dense math.
+  dense matrix work, and the reason HyperNEAT batches better than direct
+  encoding: the phenotype is generated, not stored, so the genome is tiny
+  and decode cost is O(pop x queries) dense math.
 * **Phenotype reuse.**  The decoded network IS a
   `neuroevolution.Genome` (direct + recurrent-hidden blocks with masks),
   so `network_step`, `make_fitness_fn`, and `evaluate_champion` are

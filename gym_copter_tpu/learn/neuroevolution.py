@@ -1,4 +1,4 @@
-"""TPU-native NEAT-style neuroevolution.
+"""Batched NEAT-style neuroevolution.
 
 The reference evolves Lander2D controllers with ES-HyperNEAT via the
 external NEAT-Gym runner (attic/neat/README.md:10-23), configured with
@@ -8,14 +8,14 @@ pop_size=96, episode_reps=10, fitness_threshold=300
 evaluated with neat-python's *process*-parallel fitness evaluator
 (attic/neat/README.md:23-26).
 
-This module is the TPU-first re-design of that capability, not a port of
+This module is the batched re-design of that capability, not a port of
 neat-python:
 
 * **Population-in-one-jit evaluation.**  NEAT's process pool becomes a
   single XLA program: the whole population x episode_reps batch
   (pop*reps lockstep environments) steps inside one `lax.scan`, with the
-  per-genome recurrent network applied as population-stacked einsums on
-  the MXU.  One device dispatch per generation instead of one process per
+  per-genome recurrent network applied as population-stacked einsums.
+  One device dispatch per generation instead of one process per
   genome.
 * **Static-shape topology search.**  NEAT grows nodes/connections
   dynamically — hostile to XLA's compile-once model.  Here every genome

@@ -2,16 +2,16 @@
 
 The reference delegated learning to external frameworks (NEAT-Gym, AC-Gym
 TD3, nengo — SURVEY.md §2.2 L8); here the learner is part of the framework
-and TPU-native: rollout (a T-step `lax.scan` over the batched env), GAE,
+and batched: rollout (a T-step `lax.scan` over the batched env), GAE,
 and the clipped-surrogate updates all live inside ONE jitted train step.
 Under a device mesh the env batch is sharded along `env` and parameters are
-replicated; the SPMD partitioner inserts the gradient all-reduce over ICI
+replicated; the SPMD partitioner inserts the gradient all-reduce
 automatically — no hand-written collectives.
 
 Layout: everything is features-first — obs (obs_dim, N), hidden (h, N),
 actions (A, N) — so the policy matmuls are (h, in) @ (in, N) with the env
-batch on the MXU/VPU lane dimension, exactly the layout the env engine
-produces (envs/base.py).
+batch as the wide dimension, exactly the layout the env engine produces
+(envs/base.py).
 
 Action parameterization: the env clips raw motor values to [0, 1]
 (task.py:91) and the useful range around hover is vehicle-dependent (e.g.
@@ -73,13 +73,9 @@ class PPOConfig(NamedTuple):
     # minibatch shuffle granularity: the T*B rollout buffer is shuffled by
     # permuting contiguous BLOCKS of this many transitions rather than
     # single elements.  A block is `shuffle_block` consecutive envs at one
-    # timestep (flat index = t*B + b), i.e. independent environments — and
-    # the TPU cost difference is huge: an element-wise permutation gather
-    # of the 524k-transition buffer ran at 100 ms/update vs 18 ms for
-    # block shuffling (the whole remaining update included;
-    # docs/profile_ppo.json, round 4).  XLA lowers 4-byte-granularity
-    # gathers to scalar loads; block gathers move 512-byte+ contiguous
-    # runs at HBM bandwidth.
+    # timestep (flat index = t*B + b), i.e. independent environments.  A
+    # block gather moves 512-byte+ contiguous runs where an element-wise
+    # permutation gathers 4-byte scalars.
     #
     # None = auto (round 5): 128 when a 128-env block is <= 1/32 of the
     # env batch (num_envs >= 4096), element-wise (1) below.  Evidence:
@@ -112,15 +108,12 @@ class PPOConfig(NamedTuple):
     # good optimum.  (Round-2 used an epoch-level check, which let up to
     # `minibatches` oversized steps through before tripping.)
     target_kl: float = 0.0
-    # matmul precision for the policy/critic MLPs: None = full f32 dots;
-    # 'bfloat16' runs the dots in the MXU's native bf16 with f32
-    # accumulation (weights/optimizer/activations-between-layers stay
-    # f32).  Measured on v5e at the flagship 4096-env recipe (round 5,
-    # docs/profile_ppo.json): the f32 update already achieves 59 TFLOP/s
-    # of analytic dot work (~30% of the 197T bf16 MXU peak) and the bf16
-    # step times the same within noise (11.5 vs 11.2 ms) — the update is
-    # minibatch-step-overhead/bandwidth-bound at hidden=128, not
-    # matmul-bound — so this defaults off; flip it for larger `hidden`.
+    # matmul dtype for the policy/critic MLPs: None = f32 operands at JAX's
+    # default matmul precision, which on an NVIDIA GPU may run the dot in
+    # TF32 (a 10-bit mantissa) — wrap the step in
+    # `jax.default_matmul_precision('highest')` for full f32; 'bfloat16'
+    # runs the dots with bf16 operands and f32 accumulation
+    # (weights/optimizer/activations-between-layers stay f32).
     matmul_dtype: str | None = None
 
 
@@ -219,9 +212,10 @@ def mlp_apply(params, x, matmul_dtype=None):
     """x: (in, N) -> (out, N); tanh hidden activations.
 
     matmul_dtype='bfloat16' casts weights and activations to bf16 for the
-    matmuls with f32 accumulation (preferred_element_type) — the MXU's
-    native precision; biases, activations between layers, and everything
-    outside the dots stay f32.  None keeps full-f32 dots.
+    matmuls with f32 accumulation (preferred_element_type); biases,
+    activations between layers, and everything outside the dots stay f32.
+    None keeps f32 operands at the default matmul precision (TF32 on an
+    NVIDIA GPU unless a higher precision is requested).
     """
     for i, layer in enumerate(params):
         if matmul_dtype is not None:
@@ -285,12 +279,7 @@ def make_train_step(env_params: EnvParams, spec: TaskSpec, cfg: PPOConfig,
     """Builds the jitted PPO train step closed over static config.
 
     The exploration rollout is an XLA `lax.scan`; under a `mesh` the
-    automatic SPMD partitioner shards it along the env axis.  (A fused
-    Pallas rollout kernel was built and benchmarked in rounds 2-3 and
-    retired in round 4: after the block-shuffle update-phase fix the scan
-    rollout is ~5 ms of a ~23 ms update, so even an infinitely fast kernel
-    could not repay its per-step MLP<->physics relayout cost — see
-    PARITY.md "Policy-in-kernel".)"""
+    automatic SPMD partitioner shards it along the env axis."""
     cfg = resolve_minibatches(cfg, int(env_ids.shape[0]))
     hover = hover_motor_value(env_params)
     if optimizer is None:

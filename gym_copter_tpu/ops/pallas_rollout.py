@@ -1,68 +1,63 @@
-"""Fused multi-step rollout as a single Pallas TPU kernel.
+"""Fused multi-step rollout as one Pallas kernel (Triton route, GPU).
 
-The batched env step (envs/base.py) is ~150 VPU flops per environment — far
-too little work to amortize a per-step HBM round-trip.  Under `lax.scan` XLA
-compiles the rollout into a while loop whose carry (the whole EnvState) is
-materialized between iterations; at 4096 envs that is ~0.5 MB of HBM traffic
-per simulated step and the rollout is bandwidth/latency-bound, not
-compute-bound.
+The batched env step (envs/base.py) is about 150 flops and 8
+transcendentals per environment.  Under `lax.scan` XLA compiles the rollout
+into a while loop: every simulated step pays kernel launches and a read and
+write of the whole EnvState carry in device memory, for nanoseconds of
+arithmetic.
 
-This kernel runs the WHOLE T-step rollout inside one `pallas_call`: the
-batch state lives in VMEM/vector registers for all T steps and only the
-final state plus per-env aggregates (reward sum, episodes completed) are
-written back to HBM.  Physics semantics are identical to
-`core/dynamics.step` + `envs/base._raw_step` + auto-reset (which themselves
-mirror the reference `Dynamics.setMotors` / `_Task.step`,
+This kernel runs the WHOLE T-step rollout inside one `pallas_call`: each
+program owns a block of envs, keeps their state (about 30 values per env)
+in registers for all T steps, and writes back only the final state plus
+per-env aggregates (reward sum, episodes completed).  Physics semantics
+are identical to `core/dynamics.step` + `envs/base._raw_step` + auto-reset
+(which themselves mirror the reference `Dynamics.setMotors` / `_Task.step`,
 gym_copter/dynamics/__init__.py:114-197 and gym_copter/envs/task.py:77-137),
 including every parity quirk documented in SURVEY.md §2.4 — the op order of
-each arithmetic expression is kept identical to envs/base.py so the state
-trajectory is bit-exact against the XLA path on the same backend.
+each arithmetic expression is kept identical to envs/base.py, so the state
+trajectory is bit-exact against the XLA path in the interpreter, and it
+agreed bit for bit on an H200 at the sizes chip_smoke.py checks.
 
-Design notes (see /opt/skills/guides/pallas_guide.md):
-  * Batch layout: B envs are viewed as (R, 128) with R = B // 128 — full
-    (8, 128) VPU tiles, no padding waste.  Each of the 12 state components
-    is carried as its own (R, 128) array, so the fori_loop carry never
-    needs a relayout.
+Design notes:
+  * Grid: one program per BLOCK envs, one env per thread.  The batch tail
+    is masked, so any batch size runs.  The (12, B) and (6, B) state leaves
+    are loaded and stored row by row.
   * Actions are constant across the rollout (the demo-heuristic / bench
-    regime), so the Eq.6 motor mix (thrust + torques) is precomputed on the
-    host side of the kernel boundary once, not 10,000 times.
+    regime), so the Eq.6 motor mix (thrust + torques) is precomputed outside
+    the kernel once, not T times.
   * Auto-reset randomness (the reset wind kick, task.py:177-188) is a
     counter-based hash of (global env id, episode index, salt) — the
     in-kernel analogue of the XLA path's
     `fold_in(fold_in(base_key, env_id), episode)` stream (envs/base.py
     `_initial_forces`).  Because the hash depends only on GLOBAL per-env
-    values carried with the state (never on lane position, batch size,
+    values carried with the state (never on block position, batch size,
     launch count, or a per-shard PRNG), trajectories are bit-identical
     across any sharding layout — the same layout-independence contract the
-    XLA path guarantees (envs/base.py:16-19) — and interpret-mode (CPU)
-    runs produce the same kicks bit-for-bit as compiled TPU runs.  The
-    hash stream itself differs from the XLA threefry stream, so
-    fused-vs-scan bit-parity tests run with `initial_random_force == 0`.
+    XLA path guarantees (envs/base.py:16-19).  The hash stream itself
+    differs from the XLA threefry stream, so fused-vs-scan parity tests run
+    with `initial_random_force == 0`.
 
-Supported task space (assertion-checked): 'lander' and 'hover' kinds with
-'standard' termination — the headline Lander/Hover 1D/2D/3D family.  Other
-kinds fall back to `scan_rollout`, the XLA path.
+Supported task space: see `supports`.  Other kinds go through
+`scan_rollout`, the XLA path.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from gym_copter_tpu.core import constants as C
 from gym_copter_tpu.core.dynamics import DynamicsState
 from gym_copter_tpu.core.types import EnvParams
 from gym_copter_tpu.envs import base
 from gym_copter_tpu.envs.base import EnvState, TaskSpec
-
-LANES = 128
 
 
 def _motor_mix(action, params: EnvParams, spec: TaskSpec, dtype):
@@ -81,7 +76,7 @@ def _motor_mix(action, params: EnvParams, spec: TaskSpec, dtype):
     else:
         motors = action
     mix = jnp.asarray(spec.mix_matrix, dtype)
-    m4 = mix @ motors  # (4, B)
+    m4 = jnp.matmul(mix, motors, precision=jax.lax.Precision.HIGHEST)
     if spec.action_mode == 'demand3':
         # the MIXED motor values are clipped to [0,1] (simple_lander3d.py:99)
         m4 = jnp.clip(m4, 0.0, 1.0)
@@ -115,8 +110,8 @@ def motor_mix_terms(m4, params: EnvParams, dtype):
 
 
 def _i32(c) -> jnp.int32:
-    """A uint32 constant as its int32 two's-complement twin (Mosaic has no
-    native uint32 lanes; int32 wrapping arithmetic is bit-identical)."""
+    """A uint32 constant as its int32 two's-complement twin: the hash runs
+    in int32 wrapping arithmetic, which is bit-identical to uint32 math."""
     return jnp.int32(np.int32(np.uint32(c)))
 
 
@@ -128,8 +123,8 @@ def _kick_u01(eid, ep, salt, axis_salt, dtype):
     """Counter-based uniform in [0, 1): murmur3-fmix32-style avalanche of
     (global env id, episode index, salt, axis).  Pure int32 arithmetic with
     logical shifts — wrapping int32 mul/xor/shr is bit-identical to uint32
-    math, so the XLA interpreter (CPU tests) and Mosaic (TPU) produce the
-    SAME bits, and the value depends only on globally-meaningful inputs
+    math, so the interpreter (CPU tests) and the compiled kernel produce
+    the SAME bits, and the value depends only on globally-meaningful inputs
     (layout independence).  Quality is validated by the moment/uniformity
     test in tests/test_pallas_rollout.py."""
     def shr(v, k):  # logical shift with the amount pinned to int32 (x64 mode)
@@ -193,7 +188,7 @@ def _reset_constants(params: EnvParams, spec: TaskSpec):
 
 
 def make_env_step(params: EnvParams, spec: TaskSpec,
-                  shape: Tuple[int, int], random_reset: bool):
+                  shape: Tuple[int, ...], random_reset: bool):
     """Build the in-kernel environment transition used by the
     constant-action rollout kernel below.  All physics / reward /
     termination constants are closed over as Python floats so they compile
@@ -202,8 +197,8 @@ def make_env_step(params: EnvParams, spec: TaskSpec,
     Returns env_step(carry, u, eid, salt) -> (carry', reward, done) where
       carry = (xs 12-tuple, ps 6-tuple, status, ticks, steps, pshape, ep),
       u     = (bz, u2ix, u3iy, u4iz, om) per-env thrust/torque accelerations
-              from `motor_mix_terms` (each (R, 128)),
-      eid   = (R, 128) int32 GLOBAL env ids (keys the reset-kick hash),
+              from `motor_mix_terms` (each of `shape`),
+      eid   = int32 GLOBAL env ids of `shape` (keys the reset-kick hash),
       salt  = scalar int32 run-level salt (the base_key analogue; must be
               identical on every shard for layout independence),
     and reward/done describe the finished step (pre-auto-reset), while
@@ -423,11 +418,24 @@ def make_env_step(params: EnvParams, spec: TaskSpec,
     return env_step
 
 
+# Envs per program and warps per program: one env per thread.  Swept on an
+# H200 (700 W), Lander3D x 1,000 steps: at 4,096 envs 32/1 and 64/2 were
+# best (1.07-1.08 ms; 128/4 1.36, 256/8 1.45), at 262,144 envs 32/1, 64/2,
+# 128/4 and 256/8 were within noise (3.6-3.7 ms); two envs per thread
+# were 20-80% slower and four 2-3.3x slower.  64/2 is at the best of both.
+BLOCK = 64
+NUM_WARPS = 2
+
+
 def _build_kernel(params: EnvParams, spec: TaskSpec, num_steps: int,
-                  shape: Tuple[int, int], random_reset: bool):
-    """The constant-action whole-rollout kernel: loads state + precomputed
-    thrust/torque terms into registers, runs num_steps env transitions, and
-    writes back the final state plus per-env reward sums / episode counts."""
+                  batch: int, random_reset: bool):
+    """The constant-action whole-rollout kernel for one block of envs:
+    loads the block's state and thrust/torque terms into registers, runs
+    num_steps env transitions, and writes back the final state plus per-env
+    reward sums / episode counts.  Lanes past the end of the batch are
+    masked on every load and store."""
+    block = BLOCK
+    shape = (block,)
     env_step = make_env_step(params, spec, shape, random_reset)
 
     def kernel(x_ref, p_ref, status_ref, ticks_ref, steps_ref, pshape_ref,
@@ -435,47 +443,46 @@ def _build_kernel(params: EnvParams, spec: TaskSpec, num_steps: int,
                bz_ref, u2_ref, u3_ref, u4_ref, om_ref, seed_ref,
                x_out, p_out, status_out, ticks_out, steps_out, pshape_out,
                ep_out, acc_out, eps_out):
-        xs = tuple(x_ref[i] for i in range(12))
-        ps = tuple(p_ref[i] for i in range(6))
-        u = (bz_ref[:], u2_ref[:], u3_ref[:], u4_ref[:], om_ref[:])
-        env0 = (xs, ps, status_ref[:], ticks_ref[:], steps_ref[:],
-                pshape_ref[:], ep_ref[:])
-        eid = eid_ref[:]
+        start = pl.program_id(0) * block
+        lanes = pl.ds(start, block)
+        mask = start + jnp.arange(block) < batch
+
+        def at(ref, row):  # row index pinned to int32 (x64 mode)
+            return ref.at[lanes] if row is None else ref.at[np.int32(row),
+                                                            lanes]
+
+        def load(ref, row=None):
+            return plgpu.load(at(ref, row), mask=mask)
+
+        def store(ref, value, row=None):
+            plgpu.store(at(ref, row), value, mask=mask)
+
+        xs = tuple(load(x_ref, i) for i in range(12))
+        ps = tuple(load(p_ref, i) for i in range(6))
+        u = tuple(load(r) for r in (bz_ref, u2_ref, u3_ref, u4_ref, om_ref))
+        env0 = (xs, ps, load(status_ref), load(ticks_ref), load(steps_ref),
+                load(pshape_ref), load(ep_ref))
+        eid = load(eid_ref)
         salt = seed_ref[0]
         acc0 = jnp.zeros(shape, pshape_ref.dtype)
         eps0 = jnp.zeros(shape, jnp.int32)
 
-        def one_step(carry):
+        def body(_, carry):
             env, acc, eps = carry
             env, reward, done = env_step(env, u, eid, salt)
             return env, acc + reward, eps + done.astype(jnp.int32)
 
-        # Mosaic supports only unroll=1 fori_loops; unroll manually to
-        # amortize loop overhead (4 physics steps per loop iteration).
-        unroll = 4
-
-        def body(_, carry):
-            for _ in range(unroll):
-                carry = one_step(carry)
-            return carry
-
-        carry = jax.lax.fori_loop(0, num_steps // unroll, body,
-                                  (env0, acc0, eps0))
-        for _ in range(num_steps % unroll):
-            carry = one_step(carry)
-        (xs, ps, status, ticks, steps, pshape, ep), acc, eps = carry
+        (xs, ps, status, ticks, steps, pshape, ep), acc, eps = (
+            jax.lax.fori_loop(0, num_steps, body, (env0, acc0, eps0)))
 
         for i in range(12):
-            x_out[i] = xs[i]
+            store(x_out, xs[i], i)
         for i in range(6):
-            p_out[i] = ps[i]
-        status_out[:] = status
-        ticks_out[:] = ticks
-        steps_out[:] = steps
-        pshape_out[:] = pshape
-        ep_out[:] = ep
-        acc_out[:] = acc
-        eps_out[:] = eps
+            store(p_out, ps[i], i)
+        for ref, value in ((status_out, status), (ticks_out, ticks),
+                           (steps_out, steps), (pshape_out, pshape),
+                           (ep_out, ep), (acc_out, acc), (eps_out, eps)):
+            store(ref, value)
 
     return kernel
 
@@ -501,46 +508,35 @@ def _fused(state_arrays, action, seed, *, num_steps, params, spec, interpret):
     (x, perturb, status, ticks, steps, pshape, episode, env_ids) = state_arrays
     dtype = x.dtype
     b = x.shape[-1]
-    r = b // LANES
-    shape = (r, LANES)
 
-    bz, u2, u3, u4, om = _motor_mix(action, params, spec, dtype)
+    u = _motor_mix(action, params, spec, dtype)
     random_reset = (spec.perturb_on_reset
                     and float(params.task.initial_random_force) != 0.0)
-    kernel = _build_kernel(params, spec, num_steps, shape, random_reset)
+    kernel = _build_kernel(params, spec, num_steps, b, random_reset)
 
-    def rs(a):  # (…, B) -> (…, R, 128)
-        return a.reshape(a.shape[:-1] + shape)
-
-    vec = functools.partial(jax.ShapeDtypeStruct, shape)
+    vec = functools.partial(jax.ShapeDtypeStruct, (b,))
     out_shape = (
-        jax.ShapeDtypeStruct((12,) + shape, dtype),
-        jax.ShapeDtypeStruct((6,) + shape, dtype),
+        jax.ShapeDtypeStruct((12, b), dtype),
+        jax.ShapeDtypeStruct((6, b), dtype),
         vec(jnp.int32), vec(jnp.int32), vec(jnp.int32),
         vec(dtype), vec(jnp.int32), vec(dtype), vec(jnp.int32),
     )
-    n_in = 13
-    vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
-    outs = pl.pallas_call(
+    return pl.pallas_call(
         kernel,
         out_shape=out_shape,
-        in_specs=[vmem] * n_in + [pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=(vmem,) * len(out_shape),
+        grid=(pl.cdiv(b, BLOCK),),
+        backend='triton',
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         cost_estimate=pl.CostEstimate(
             flops=num_steps * b * 150,
             bytes_accessed=(12 + 6 + 5) * b * 4 * 2,
             transcendentals=num_steps * b * 8,
         ),
         interpret=interpret,
-    )(rs(x), rs(perturb), rs(status), rs(ticks), rs(steps), rs(pshape),
-      rs(episode), rs(env_ids),
-      rs(bz), rs(u2), rs(u3), rs(u4), rs(om),
-      jnp.asarray([seed], jnp.int32))
-
-    def fl(a):  # (…, R, 128) -> (…, B)
-        return a.reshape(a.shape[:-2] + (b,))
-
-    return tuple(fl(o) for o in outs)
+        name='fused_rollout',
+    )(x, perturb, status, ticks, steps, pshape, episode, env_ids, *u,
+      jnp.asarray(seed, jnp.int32).reshape(1))
 
 
 def fused_rollout(
@@ -552,19 +548,22 @@ def fused_rollout(
     *,
     seed: int = 0,
     env_ids=None,
-    interpret: Optional[bool] = None,
+    interpret: bool = False,
 ):
     """Run `num_steps` auto-resetting env steps with a constant action as ONE
-    Pallas kernel launch.
+    Pallas kernel launch.  Compiles for the GPU; `interpret=True` runs the
+    same kernel in the Pallas interpreter (tests on the CPU).
 
     Returns (EnvState, totals) where totals = {'reward_sum': (B,) summed
     per-env rewards, 'episodes': (B,) int32 episodes completed}.  The
     returned EnvState matches what `num_steps` iterated `base.step` calls
-    would produce (bit-exact when `initial_random_force == 0`; statistically
-    equivalent otherwise — the in-kernel counter-hash kick stream parallels,
-    but does not replay, the host `fold_in` stream).  Reset kicks are keyed
-    by (env_ids, state.episode, seed): pass the envs' GLOBAL ids (defaults
-    to arange(B)) and the same `seed` on every shard, and the trajectory is
+    would produce (bit-exact in the interpreter, and on an H200 as far as
+    chip_smoke.py checks, when `initial_random_force == 0`; statistically
+    equivalent otherwise — the
+    in-kernel counter-hash kick stream parallels, but does not replay, the
+    host `fold_in` stream).  Reset kicks are keyed by (env_ids,
+    state.episode, seed): pass the envs' GLOBAL ids (defaults to
+    arange(B)) and the same `seed` on every shard, and the trajectory is
     bit-identical on any sharding layout — the envs/base.py:16-19 contract.
     `initial_random_x` is not re-derived for auto-reset episodes (it only
     feeds the 2D renderer's wind pennant, twod.py:189-207).
@@ -574,10 +573,6 @@ def fused_rollout(
             f'task {spec.name!r} (kind={spec.kind}, term={spec.termination}) '
             f'is outside the fused-kernel family; use scan_rollout')
     b = state.dyn.x.shape[-1]
-    if b % LANES != 0:
-        raise ValueError(f'batch {b} must be a multiple of {LANES}')
-    if interpret is None:
-        interpret = jax.default_backend() != 'tpu'
     if env_ids is None:
         env_ids = jnp.arange(b, dtype=jnp.int32)
 
@@ -602,8 +597,8 @@ def fused_rollout(
 def scan_rollout(state: EnvState, action, base_key, env_ids, num_steps: int,
                  params: EnvParams, spec: TaskSpec):
     """XLA reference path: the same rollout as `lax.scan` over `base.step`.
-    Works for every task kind and batch size; used as the fused kernel's
-    correctness oracle and as the fallback for unsupported specs."""
+    Works for every task kind and batch size; the fused kernel's correctness
+    oracle, and the rollout off the GPU and for unsupported specs."""
 
     def body(carry, _):
         st, acc, eps = carry

@@ -9,8 +9,8 @@ are embarrassingly parallel, so the design is pure data parallelism over a
     axis; the jitted step partitions with zero communication;
   * learner parameters are replicated; the only collectives are the
     all-reduce of gradients (inserted automatically by the SPMD
-    partitioner when a replicated output is computed from sharded inputs),
-    riding ICI within a slice and DCN across hosts;
+    partitioner when a replicated output is computed from sharded inputs;
+    NCCL between GPUs);
   * per-env randomness is keyed by *global* env id (envs/base.py), so any
     sharding layout reproduces the single-device trajectories bit-exactly.
 
@@ -72,11 +72,13 @@ _SHARDED_ROLLOUT_CACHE = {}
 
 def sharded_fused_rollout(state, action, num_steps: int, params, spec,
                           mesh: Mesh, *, seed: int = 0, env_ids=None,
-                          axis: str = ENV_AXIS, interpret=None):
-    """Multi-chip version of `ops.pallas_rollout.fused_rollout`: the env
+                          axis: str = ENV_AXIS, interpret: bool = False):
+    """Multi-device version of `ops.pallas_rollout.fused_rollout`: the env
     batch is sharded over the mesh and every device runs the whole-rollout
     Pallas kernel on its local shard — environments never communicate, so
-    the rollout scales with zero collectives (SURVEY.md §2.3).
+    the rollout scales with zero collectives (SURVEY.md §2.3).  The batch
+    must divide by the mesh size; `interpret=True` runs the kernel in the
+    Pallas interpreter (tests on the CPU mesh).
 
     Reset wind kicks are a counter hash of (GLOBAL env id, episode, seed);
     every shard uses the same seed and its envs' global ids, so the result
@@ -88,9 +90,7 @@ def sharded_fused_rollout(state, action, num_steps: int, params, spec,
     env_ids: (B,) GLOBAL env ids (default arange(B)).
 
     The shard_map is wrapped in an outer jit cached per (mesh, task,
-    num_steps): an EAGER shard_map dispatches roughly 2x slower than the
-    unsharded kernel (measured on v5e), while the jitted wrapper runs at
-    parity (~103% of the unsharded throughput, scripts/bench_scaling.py).
+    num_steps), so repeated calls dispatch one compiled program.
 
     Returns the same (EnvState, totals) as fused_rollout.
     """
@@ -98,20 +98,14 @@ def sharded_fused_rollout(state, action, num_steps: int, params, spec,
 
     b = state.dyn.x.shape[-1]
     n_dev = mesh.devices.size
-    if b % (n_dev * pr.LANES) != 0:
-        raise ValueError(
-            f'batch {b} must be a multiple of mesh size {n_dev} x {pr.LANES}')
+    if b % n_dev != 0:
+        raise ValueError(f'batch {b} must be a multiple of mesh size {n_dev}')
     if env_ids is None:
         env_ids = jnp.arange(b, dtype=jnp.int32)
 
     cache_key = (mesh, num_steps, params, spec, axis, interpret)
     fn = _SHARDED_ROLLOUT_CACHE.get(cache_key)
     if fn is None:
-        try:
-            shard_map = jax.shard_map
-        except AttributeError:  # older jax
-            from jax.experimental.shard_map import shard_map
-
         def spec_of_ndim(ndim):
             return P(*([None] * (ndim - 1) + [axis]))
 
@@ -139,8 +133,8 @@ def sharded_fused_rollout(state, action, num_steps: int, params, spec,
         out_specs = (P(None, axis), P(None, axis), P(axis), P(axis),
                      P(axis), P(axis), P(axis), P(axis), P(axis), P(axis))
         # check_vma off: pallas_call outputs don't carry vma metadata
-        fn = jax.jit(shard_map(local, mesh=mesh, in_specs=in_specs,
-                               out_specs=out_specs, check_vma=False))
+        fn = jax.jit(jax.shard_map(local, mesh=mesh, in_specs=in_specs,
+                                   out_specs=out_specs, check_vma=False))
         _SHARDED_ROLLOUT_CACHE[cache_key] = fn
 
     outs = fn(state.dyn.x, state.dyn.perturb, state.dyn.status,

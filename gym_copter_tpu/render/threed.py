@@ -3,7 +3,7 @@
 Capability parity with the reference renderer (gym_copter/rendering/
 __init__.py: wireframe quad with four arms and prop circles rotated by the
 Euler pose, optional trajectory trace, landing-target circle, view angles,
-mp4 export, RGB frame grab) — but architected TPU-natively: the reference
+mp4 export, RGB frame grab) — but decoupled from the simulation: the reference
 steps the sim on a daemon thread and has the matplotlib timer read shared
 mutable `env.pose` without synchronization (rendering/__init__.py:149,
 237-240); here rendering *replays a recorded trajectory* pulled off-device

@@ -1,7 +1,7 @@
 """Synthetic downward-looking vision and DVS (event-camera) sensors.
 
 Capability twin of the reference sensors (attic/gym_copter/sensors/vision/
-vs.py, dvs.py), redesigned for batched TPU execution:
+vs.py, dvs.py), redesigned for batched execution:
 
   * the reference rasterizes the landing-pad circle with cv2.circle and
     perspective-warps the *image* with cv2.warpPerspective (vs.py:39-65,
@@ -79,12 +79,10 @@ class VisionSensor:
             v' = (s/2) ((k R10 - R20) x + (k R11 - R21) y + h)
 
         composed with the corner shift (xi, yi) -> (xi - res/2, yi - res/2).
-        Closed form matters for performance, not just elegance: the 8x8
-        `jnp.linalg.solve` this replaces ran ~80x slower inside a
-        `lax.scan` rollout than standalone (batched tiny LU pivoting
-        compiles to serial dynamic-slice loops on TPU), capping visual
-        rollouts at 0.33M env-steps/s; elementwise trig products restore
-        image cost to less than the physics step (docs/bench_vision.json).
+        Closed form keeps the per-env camera elementwise: a batched 8x8
+        `jnp.linalg.solve` inside the `lax.scan` rollout would pivot each
+        tiny LU serially, where these trig products vectorize over the
+        batch like the physics step.
         """
         rad = jnp.radians
         st, ct = jnp.sin(rad(psi)), jnp.cos(rad(psi))

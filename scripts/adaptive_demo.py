@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Adaptive disturbance-rejection demo — the TPU-native counterpart of the
+"""Adaptive disturbance-rejection demo — the batched counterpart of the
 reference's Nengo PES hover experiment (attic/nengo/adaptive.py).
 
 Runs a SWEEP of wind forces in one batched compiled rollout: every plant

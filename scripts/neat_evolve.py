@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Evolve a NEAT-style controller — the NEAT-Gym `neat-evolve.py config/
-lander2d` equivalent (attic/neat/README.md:17-23), TPU-native.
+lander2d` equivalent (attic/neat/README.md:17-23), batched.
 
 Defaults mirror attic/neat/config/lander2d: pop_size 96, episode_reps 10,
 fitness_threshold 300, env Lander2D-v0.  The whole population x reps batch

@@ -29,7 +29,7 @@ import time
 import numpy as np
 
 # the adapter's JAX side runs the single env on CPU: one B=1 env step is
-# dispatch-latency-bound, and this leaves the TPU free for PPO runs
+# dispatch-latency-bound, and this leaves the accelerator free for PPO runs
 import jax
 jax.config.update('jax_platforms', 'cpu')
 

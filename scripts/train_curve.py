@@ -87,14 +87,14 @@ def main():
                         'when a block is <=1/32 of the env batch, else '
                         'element-wise — see PPOConfig.shuffle_block), '
                         '1 = exact element-wise permutation, 128 = block '
-                        'shuffle (~7.5x faster updates on TPU)')
+                        'shuffle')
     p.add_argument('--target-kl', type=float, default=0.015,
                    help='per-minibatch approx-KL trust-region guard '
                         '(0 disables): the first minibatch whose KL exceeds '
                         'this is itself skipped, plus everything after it '
                         'in the update')
     p.add_argument('--matmul-dtype', default='',
-                   help="'' = f32 dots (default); 'bfloat16' = MXU-native "
+                   help="'' = f32 dots (default); 'bfloat16' = bf16 "
                         "dots with f32 accumulation (ppo.mlp_apply)")
     p.add_argument('--keep-best', action='store_true',
                    help='returned/checkpointed policy = best evaluated one')

@@ -2,9 +2,9 @@
 """Hover3D PPO learning-curve validation (BASELINE.json configs[3]).
 
 Trains the actor-learner on one host, starting from a motors-off policy,
-and records the deterministic-eval learning curve.  A representative run on
-one TPU v5e chip reaches eval_return ~833/999 after 1500 updates (~196M
-env steps, a few minutes of wall clock) from the free-fall baseline ~146.
+and records the deterministic-eval learning curve.  A representative run
+reaches eval_return ~833/999 after 1500 updates (~196M env steps) from the
+free-fall baseline ~146.
 
 Usage:
   python scripts/train_hover3d.py [--updates N] [--envs B] [--seed S]

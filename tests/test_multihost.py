@@ -1,7 +1,7 @@
 """Multi-host (multi-process) training over jax.distributed.
 
 Spawns REAL separate processes connected through the distributed service
-(Gloo over loopback — the same code path a TPU pod runs over DCN) and
+(Gloo over loopback) and
 checks: both processes complete, the global mesh spans both processes'
 devices, and — the determinism contract (envs/base.py keys randomness by
 GLOBAL env id) — the 2-host run reproduces the single-host run's training

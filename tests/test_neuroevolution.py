@@ -3,7 +3,7 @@
 The reference's NEAT capability is an external runner
 (attic/neat/README.md:10-23) configured by attic/neat/config/lander2d
 (pop 96, episode_reps 10, fitness_threshold 300).  These tests exercise
-the TPU-native re-design: population-stacked masked networks, one-jit
+the batched re-design: population-stacked masked networks, one-jit
 fitness evaluation, and the jitted genetic step.
 """
 

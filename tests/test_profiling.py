@@ -2,66 +2,47 @@
 
 import time
 
+import jax.numpy as jnp
+import pytest
+
 from gym_copter_tpu.utils import profiling
 
 
-def test_differential_throughput_cancels_fixed_overhead():
-    """A synthetic workload with a large fixed cost per call and a known
-    per-iteration cost: the differential estimate must recover the
-    per-iteration cost, not the fixed overhead."""
-    per_iter = 2e-4
-    fixed = 30e-3
+def test_steps_per_sec_recovers_rate():
+    """A synthetic workload of known duration: the median rate is the
+    env-steps per call over the seconds per call."""
+    per_call = 5e-3
 
-    def run(num_steps):
-        time.sleep(fixed + per_iter * num_steps)
-        return 0.0
+    def fn():
+        time.sleep(per_call)
+        return jnp.zeros(())
 
-    res = profiling.differential_steps_per_sec(run, 10, 60, batch=128,
-                                               reps=2)
-    est = res['ns_per_iter'] * 1e-9
-    assert 0.5 * per_iter < est < 2.0 * per_iter
-    assert res['steps_per_sec'] > 0
-
-
-def test_degenerate_samples_rejected_not_clamped():
-    """Reps where jitter swallows the marginal workload (t_hi no slower
-    than t_lo) must be rejected, never clamped into absurd throughput —
-    the round-4 headline carried clamped samples at 5x the median."""
-    calls = []
-
-    def run(num_steps):
-        # every odd (t_lo, t_hi) pair is degenerate: identical duration
-        calls.append(num_steps)
-        pair_idx = (len(calls) - 3) // 2  # skip the 2 warm-up calls
-        if pair_idx >= 0 and pair_idx % 2 == 1:
-            time.sleep(0.002)
-        else:
-            time.sleep(0.002 + (2e-5 * num_steps if num_steps > 100 else 0))
-        return 0.0
-
-    res = profiling.differential_steps_per_sec(
-        run, 10, 500, batch=64, reps=4, min_marginal_s=1e-3)
-    assert res['rejected'] >= 1
-    assert res['n_samples'] >= 1
-    for s in res['samples']:
-        assert s < 64 * 490 / 1e-3  # nothing near the clamp ceiling
+    res = profiling.steps_per_sec(fn, env_steps=1000, reps=3)
+    assert len(res['samples']) == 3
+    assert per_call <= res['seconds'] < 4 * per_call
+    assert 1000 / (4 * per_call) < res['steps_per_sec'] <= 1000 / per_call
 
 
 def test_robust_stats_mad_resists_outliers():
-    samples = [7.0, 7.1, 6.9, 7.05, 37.0]  # one tunnel-glitch outlier
+    samples = [7.0, 7.1, 6.9, 7.05, 37.0]  # one outlier sample
     stats = profiling.robust_stats(samples)
     assert 6.9 <= stats['median'] <= 7.1
     assert stats['spread_pct'] < 5.0  # stddev would report >100%
 
 
-def test_timed_host_sync_means_over_reps():
+def test_robust_stats_raises_without_samples():
+    with pytest.raises(ValueError, match='no samples'):
+        profiling.robust_stats([])
+
+
+def test_time_calls_warms_up_and_waits():
     calls = []
 
     def fn():
         calls.append(1)
         time.sleep(0.001)
-        return 0.0
+        return jnp.arange(3) * 2
 
-    d = profiling.timed_host_sync(fn, reps=3)
+    d = profiling.time_calls(fn, reps=3)
     assert len(calls) == 4  # 1 warm-up + 3 timed
-    assert d >= 0.001
+    assert len(d) == 3 and min(d) >= 0.001

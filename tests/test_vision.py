@@ -153,9 +153,8 @@ def test_closed_form_homography_matches_four_point_solve():
 
 def test_image_path_contains_no_serializing_linalg():
     """Performance guard: the batched image path must stay free of LU
-    factorizations and loops — the 8x8 jnp.linalg.solve it once used
-    serialized inside lax.scan and cost 40x the physics step
-    (docs/bench_vision.json history).  The closed-form construction is
+    factorizations and loops — a batched 8x8 jnp.linalg.solve serializes
+    inside lax.scan.  The closed-form construction is
     pure elementwise math, so the jaxpr must contain no while/scan, no
     triangular_solve, and no lu."""
     s = VisionSensor(res=16)
